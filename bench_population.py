@@ -1,10 +1,9 @@
 #!/usr/bin/env python
-"""Population-batch throughput (BASELINE config 5 shape, scaled to this box).
+"""Population-batch throughput (BASELINE config 5 shape, at reduced scale).
 
-BASELINE.json config 5 is "100-sample population batch on v5p-64"; real
-multi-chip hardware is unavailable here, so this measures the same code path
-at reduced scale: S samples of N sites each through call_population in both
-modes (pooled = one global Lynch fit over the union histogram; independent =
+BASELINE.json config 5 is "100-sample population batch on one H100"; this
+measures the same code path at reduced scale: S samples of N sites each
+through call_population in both modes (pooled = one global Lynch fit over the union histogram; independent =
 vmapped per-sample fits batched over the sample axis), single mesh and — with
 SIDTPU_POP_MESH=k — a k-device mesh sharding the SAMPLE axis (the BASELINE
 config's layout; see models/population.py and __graft_entry__'s
@@ -15,7 +14,7 @@ Prints one JSON line per (mode, mesh) config:
 
 Usage:
     SIDTPU_SCALING_CPU=1 python bench_population.py   # CPU backend, 8 vdev
-    python bench_population.py                        # real chip, mesh=None
+    python bench_population.py                        # default device, mesh=None
 """
 
 import json

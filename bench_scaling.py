@@ -1,15 +1,13 @@
 #!/usr/bin/env python
 """Scaling benchmark harness: sites/s efficiency across mesh sizes.
 
-BASELINE.json's scaling target is >=90% sites/s efficiency from 1 chip to
-N >= 2 hosts. Real multi-chip hardware is not available in this container,
-so this harness (a) validates numerical shard-invariance across mesh sizes
-on whatever devices exist (virtual CPU devices via
---xla_force_host_platform_device_count, or real chips on a pod), and
-(b) measures the sharded Lynch fit + classification wall time per mesh
-size. On a real slice, run:
+This harness (a) validates numerical shard-invariance across mesh sizes on
+whatever devices exist (virtual CPU devices via
+--xla_force_host_platform_device_count with SIDTPU_SCALING_CPU=1, or the
+local GPUs), and (b) measures the sharded Lynch fit + classification wall
+time per mesh size. On a multi-GPU host, run:
 
-    JAX_PLATFORMS=tpu python bench_scaling.py
+    python bench_scaling.py
 
 Prints one JSON line per mesh size.
 """
@@ -95,8 +93,8 @@ def main():
     pi_1 = eps_1 = None
     platform = jax.devices()[0].platform
     # the efficiency caveat rides in every JSONL row so the artifact cannot
-    # be over-read later (VERDICT r4 next #8): on this container's 2-core
-    # host, k>1 virtual devices oversubscribe the cores and efficiency_vs_1
+    # be over-read later: on a host with few cores, k>1 virtual devices
+    # oversubscribe the cores and efficiency_vs_1
     # decays for host reasons — it is a lower bound under oversubscription,
     # not a design property. The checkable scaling argument is the census
     # fields (zero classify collectives; scalar-only fit all-reduces),

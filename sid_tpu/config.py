@@ -1,7 +1,7 @@
 """Run configuration.
 
 Mirrors the reference CLI's ``GlobalOptions`` (sid.cpp:11-17) — same fields,
-same defaults — and adds the TPU-framework knobs (mesh shape, fit backend,
+same defaults — and adds the framework knobs (mesh shape, fit backend,
 precision, IO backend) that have no reference equivalent.
 """
 
@@ -69,9 +69,7 @@ class Options:
     # force a JAX platform for this run (e.g. "cpu"); None = default
     platform: Optional[str] = None
     # compile every production kernel shape bucket into the persistent XLA
-    # cache and exit (no input file needed). On remote-compile targets a
-    # cold compile costs minutes and a killed compile loses the cache entry;
-    # a deliberate warmup makes subsequent runs compile-free.
+    # cache and exit (no input file needed), so later runs are compile-free.
     warm_cache: bool = False
 
     def validate(self, allow_unknown_method: bool = False) -> None:

@@ -44,8 +44,8 @@ def major_allele_indices_np(counts: np.ndarray):
 def major_allele_indices(counts: jnp.ndarray):
     """Device version of the top-2 allele selection (same tie-break).
 
-    Branchless two-pass max over the tie-break-encoded scores (no sort —
-    sorts lower poorly on TPU for tiny inner axes).
+    Branchless two-pass max over the tie-break-encoded scores (no sort
+    over the tiny inner axis).
     """
     counts = counts.astype(jnp.int64)
     scores = counts * 4 + jnp.arange(4, dtype=jnp.int64)

@@ -95,11 +95,10 @@ def fit_lynch_ds(
 
     Same nmsimplex2 f64 loop (the simplex state is tiny scalar work); the
     per-profile objective and post-fit marginals run in DS arithmetic
-    (ops/likelihoods_ds.py) — native f32 VPU work instead of XLA's generic
-    f64 emulation. The objective's profile-axis sum still lowers to a psum
-    under a sharded mesh. Confidences derived from this fit agree with the
-    f64 path to ~1e-13 relative (not bitwise; the trajectory may part at
-    branch ties exactly as the TPU-emulated-f64 fit does vs CPU).
+    (ops/likelihoods_ds.py). The objective's profile-axis sum still lowers
+    to a psum under a sharded mesh. Confidences derived from this fit agree
+    with the f64 path to ~1e-13 relative (not bitwise; the trajectory may
+    part at branch ties).
     """
     from sid_tpu.ops import ds as _ds
     from sid_tpu.ops import likelihoods_ds as _lds
@@ -122,7 +121,7 @@ def run_device_fit(prof_dev, mult_dev, nt, max_cov):
     """Dispatch the jitted device fit at the configured device precision.
 
     ``SIDTPU_DEVICE_PREC=ds`` selects the double-single f32 kernels
-    (fit_lynch_ds); the default is the emulated-f64 fit. Inputs must already
+    (fit_lynch_ds); the default is the f64 fit. Inputs must already
     be padded/sharded; blocks until the result is ready so the profiling
     stage brackets real device time.
     """

@@ -7,14 +7,13 @@ ln(1-e)/ln(e) by major-allele match, log P(het) accumulates ln(1-2e/3) /
 ln(2e/3) by top-2 match, plus an allele-balance log-binomial; LRT p-values;
 het iff p2 < alpha. Every input site is emitted in order.
 
-Work split (measured on TPU v5e): the per-read stage is a pure 256-entry
-table lookup + masked sorted-segment sum — memory-bound host work (Phred
-values are integers, so every transcendental collapses into the table; the
-sequential np.add.reduceat matches the reference's per-site accumulation
-order exactly). The per-site finalization (allele-balance binomial, LRT via
-erfc, thresholds) is elementwise f64 on device, sharded over the site mesh.
-On-device R-axis gathers were tried and lower poorly (one-hot matmul in
-emulated f64).
+Work split: the per-read stage is a pure 256-entry table lookup + masked
+sorted-segment sum — memory-bound host work (Phred values are integers, so
+every transcendental collapses into the table; the sequential
+np.add.reduceat matches the reference's per-site accumulation order
+exactly). The per-site finalization (allele-balance binomial, LRT via erfc,
+thresholds) is elementwise f64, on the host for one device and on the
+device, sharded over the site mesh, for an explicit mesh.
 """
 
 from __future__ import annotations
@@ -95,12 +94,11 @@ def finalize_quality_het(
     lgamma_tab: jnp.ndarray,
 ):
     """Device half of the sharded finalize: ONLY the het side needs the
-    chip (allele-balance binomial from counts, call.cpp:344-347); the hom
-    side is a clamp + one scalar prior log the host does bitwise-identically.
-    Shipping log_hom up and both post-prior logs back doubled the sharded
-    quality leg's transfer bytes for no compute (r5; BENCH_detail.json
-    stage breakdowns). Returns clamp(log_het + binom) — the prior add runs
-    host-side after (same f64 add, bitwise equal)."""
+    device (allele-balance binomial from counts, call.cpp:344-347); the hom
+    side is a clamp + one scalar prior log the host does bitwise-identically,
+    so shipping log_hom up and both post-prior logs back would double the
+    transfer bytes for no compute. Returns clamp(log_het + binom) — the
+    prior add runs host-side after (same f64 add, bitwise equal)."""
     counts = counts.astype(jnp.int32)
     n = jnp.take_along_axis(counts, major[:, None].astype(jnp.int32), 1)[:, 0] + (
         jnp.take_along_axis(counts, second[:, None].astype(jnp.int32), 1)[:, 0]
@@ -179,10 +177,8 @@ def finalize_quality_np(
 
     All the arithmetic here is elementary IEEE f64 (table gathers,
     add/mul/compare) except the prior logs, which use glibc log — the same
-    libm the long-double oracle uses. Used on single-device runs where
-    round-tripping ~30 ms of elementwise work through the accelerator costs
-    ~10-100x the compute in transfer latency (DESIGN.md); sharded runs keep
-    the device kernel.
+    libm the long-double oracle uses. Used on single-device runs; sharded
+    runs keep the device kernel.
     """
     counts = counts.astype(np.int64)
     idx = np.arange(counts.shape[0])
@@ -355,34 +351,34 @@ def call_quality(batch, options: Options, diag=None) -> common.CallResult:
             conf_type="p_value",
         )
 
-    log_het_p = pad_axis0(log_het)
-
-    max_cov = int(batch.counts.sum(-1).max()) if n else 0
-    tab = jnp.asarray(lgamma_int_table(table_size(2 * max_cov)))
-
-    def shard(arrays):
-        if options.mesh_devices is None:
-            return arrays
+    mesh = None
+    if options.mesh_devices is not None:
         from sid_tpu.parallel.mesh import make_site_mesh, row_sharding
 
         mesh = make_site_mesh(options.mesh_devices)
-        n_dev = int(np.prod(mesh.devices.shape))
-        if arrays[0].shape[0] % n_dev != 0:
+
+    def pad(a):
+        # a bucket the mesh divides, so every device holds rows
+        return pad_axis0(a, multiple=1 if mesh is None else mesh.devices.size)
+
+    def shard(arrays):
+        if mesh is None:
             return arrays
         return [jax.device_put(a, row_sharding(mesh, a.ndim)) for a in arrays]
+
+    log_het_p = pad(log_het)
+    max_cov = int(batch.counts.sum(-1).max()) if n else 0
+    tab = jnp.asarray(lgamma_int_table(table_size(2 * max_cov)))
 
     from sid_tpu.ops.likelihoods_ds import device_precision
 
     if options.exact_pvalues:
-        # Sharded finalize, transfer-lean (r5): only the HET side touches
-        # the device, and the binomial reads nothing but (n, k) = (top-2
-        # count sum, second count) — two narrow integer planes computed on
-        # host from exact integer gathers. The hom clamp and the two scalar
-        # prior adds are elementary host f64, bitwise-identical to the old
-        # on-device adds. h2d is (n, k, log_het), d2h one f64 plane —
-        # vs the pre-r5 path's full counts + indices + both log planes both
-        # ways (measured as the entire `call` stage of the forced-device
-        # leg, BENCH_detail.json stage breakdowns).
+        # Sharded finalize, transfer-lean: only the HET side touches the
+        # device, and the binomial reads nothing but (n, k) = (top-2 count
+        # sum, second count) — two narrow integer planes computed on host
+        # from exact integer gathers. The hom clamp and the two scalar prior
+        # adds are elementary host f64, bitwise-identical to on-device adds.
+        # h2d is (n, k, log_het), d2h one f64 plane.
         counts64 = batch.counts.astype(np.int64) if n else np.zeros((0, 4), np.int64)
         idx = np.arange(n)
         n_top2 = counts64[idx, major[:n]] + counts64[idx, second[:n]]
@@ -390,8 +386,8 @@ def call_quality(batch, options: Options, diag=None) -> common.CallResult:
         nk_dtype = (
             np.uint16 if (n == 0 or int(n_top2.max()) < 65536) else np.int32
         )
-        n_p = pad_axis0(n_top2.astype(nk_dtype))
-        k_p = pad_axis0(k_sec.astype(nk_dtype))
+        n_p = pad(n_top2.astype(nk_dtype))
+        k_p = pad(k_sec.astype(nk_dtype))
         arrays = shard([n_p, k_p, log_het_p])
         if device_precision() == "ds":
             from sid_tpu.ops.likelihoods_ds import lgamma_table_ds
@@ -420,10 +416,10 @@ def call_quality(batch, options: Options, diag=None) -> common.CallResult:
             counts_src = counts_src.astype(np.uint16)
         elif counts_src.dtype != np.uint16:
             counts_src = counts_src.astype(np.int32)
-        counts_p = pad_axis0(counts_src)
-        major_p = pad_axis0(major.astype(np.int8))
-        second_p = pad_axis0(second.astype(np.int8))
-        log_hom_p = pad_axis0(log_hom)
+        counts_p = pad(counts_src)
+        major_p = pad(major.astype(np.int8))
+        second_p = pad(second.astype(np.int8))
+        log_hom_p = pad(log_hom)
         arrays = shard([counts_p, major_p, second_p, log_hom_p, log_het_p])
         with profiling.device_stage("finalize_quality"):
             dev = [jnp.asarray(a) for a in arrays]

@@ -1,28 +1,25 @@
-"""Double-single (two-float32) arithmetic for TPU device kernels.
+"""Double-single (two-float32) arithmetic for device kernels.
 
-TPU v5e has no native f64: XLA emulates every f64 op as a generic sequence
-of f32 ops, and emulated transcendentals are only ~f32-accurate (DESIGN.md).
-This module implements the classic double-word arithmetic (Dekker 1971,
-Knuth TAOCP 4.2.2, and the QD library's float-float algorithms) directly on
-f32 pairs, giving ~2^-48 relative precision — comfortably above the CSV's
-6-significant-digit bar — while staying in the VPU's fast f32 path and
-letting the kernels skip emulation where one f32 word suffices (integer
-counts, comparisons, table indices).
+The classic double-word arithmetic (Dekker 1971, Knuth TAOCP 4.2.2, and the
+QD library's float-float algorithms) implemented directly on f32 pairs,
+giving ~2^-48 relative precision — comfortably above the CSV's
+6-significant-digit bar — with every operation in f32, and one f32 word
+where it suffices (integer counts, comparisons, table indices). It is the
+alternative device precision to f64, selected by ``SIDTPU_DEVICE_PREC=ds``.
 
 A DS value is a pair ``(hi, lo)`` of f32 arrays with ``hi = fl(hi + lo)``.
 Precision: ~2^-48 relative. Range: f32's (|x| in [1e-38, 3e38]); values
 below the f32 normal range flush to zero, which the log-space kernels
 tolerate by construction (contributions below 2^-48 of the running maximum
 are invisible anyway). The ``exp``/``log`` here are accurate to a few units
-of 2^-48 — far better than the ~f32-accurate emulated-f64 transcendentals
-XLA provides on TPU.
+of 2^-48.
 
 Error-free transforms are fragile under value-changing compiler rewrites.
 XLA does not reassociate floating-point adds, and FMA contraction can only
 alter the small correction terms (two_sum is mul-free; in two_prod a
 contracted ``fma(a, b, -p)`` is the *exact* error term), so the algorithms
-hold under jit on CPU and TPU; tests/test_ds.py pins the accuracy on every
-platform the suite runs.
+hold under jit; tests/test_ds.py pins the accuracy on every platform the
+suite runs.
 """
 
 from __future__ import annotations
@@ -202,10 +199,10 @@ def where(mask, x: DS, y: DS) -> DS:
 
 
 def sum_last(x: DS) -> DS:
-    """Reduce DS values over the last axis through emulated f64.
+    """Reduce DS values over the last axis through f64.
 
     The converts are elementwise and the f64 reduction is exact to 2^-52 —
-    tighter than DS itself — at a cost of K emulated adds per row. (A
+    tighter than DS itself — at a cost of K f64 adds per row. (A
     slice-and-tree of DS adds is avoided deliberately: slicing a computed DS
     array and re-combining the slices sends XLA's CPU fusion/codegen into a
     minutes-long compile on kernels this deep; measured 56 s vs 0.5 s.)

@@ -4,7 +4,7 @@ The math of lynch.hpp:48-96, re-derived for device execution: every kernel
 returns *log* likelihoods (the reference's long-double linear space is
 replaced by f64 log-space, which clears the CSV's 6-significant-digit bar and
 never underflows). All kernels are elementwise over a (U,) profile axis —
-pure VPU work that XLA fuses into a handful of vector loops; the lgamma
+work that XLA fuses into a handful of vector loops; the lgamma
 lookup is a gather from a device-resident integer table (the reference's
 memoized gsl_sf_lngamma, lynch.hpp:11-31).
 

@@ -1,10 +1,9 @@
-"""Double-single (two-f32) genotype-likelihood kernels for TPU.
+"""Double-single (two-f32) genotype-likelihood kernels.
 
-The f64 kernels in ``ops.likelihoods`` run through XLA's generic f64
-emulation on TPU (every op decomposed to f32 sequences, transcendentals only
-~f32-accurate). These re-derive the same math (lynch.hpp:48-96,
-optimization.hpp:46-72 objective) natively in double-single f32 arithmetic
-(ops.ds, ~2^-48), with one structural upgrade the f64 kernels can't make:
+These re-derive the math of the f64 kernels in ``ops.likelihoods``
+(lynch.hpp:48-96, optimization.hpp:46-72 objective) in double-single f32
+arithmetic (ops.ds, ~2^-48), with one structural upgrade the f64 kernels
+can't make:
 
 **The fixed-allele kernels contain no transcendental evaluation at all.**
 The plug-in error rates of the ``local`` method are ratios of small integers
@@ -19,8 +18,8 @@ every log the kernel needs is the log of an integer <= cov:
 All come from one precomputed f64-accurate integer-log table (gathered as an
 f32 hi/lo pair), turning the hot per-profile chain into pure gathers + DS
 adds. The capped branch (error > -E threshold) uses DS scalars computed once
-from the threshold. Cap decisions are made in emulated f64 — bit-identical
-branch selection to the f64 kernels.
+from the threshold. Cap decisions are made in f64 — bit-identical branch
+selection to the f64 kernels.
 
 Padded rows (all-zero profiles) produce multinomial(0)=0 rows, discarded by
 the caller exactly as in the f64 kernels.
@@ -49,6 +48,12 @@ _F32 = jnp.float32
 def device_precision() -> str:
     """Device kernel precision: "f64" (default) or "ds" (double-single f32)."""
     return os.environ.get("SIDTPU_DEVICE_PREC", "f64")
+
+
+def ds_requested() -> bool:
+    """Whether ``--warm-cache`` and ``bench.py`` include the double-single
+    paths: only under ``SIDTPU_WARM_DS=1``, since no default run takes them."""
+    return bool(os.environ.get("SIDTPU_WARM_DS"))
 
 
 @lru_cache(maxsize=8)
@@ -116,11 +121,9 @@ def _capped_logs(thr: jnp.ndarray) -> Tuple[ds.DS, ds.DS, ds.DS]:
 def _int_ratio_log(num: jnp.ndarray, den: jnp.ndarray) -> ds.DS:
     """DS log(num/den) for exact-in-f32 integer operands, gather-free.
 
-    One DS division of the exact integers + one DS log (~2 kFLOP of f32 VPU
-    work per element). The gather formulation (log_tab[num] - log_tab[den])
-    is fewer FLOPs but XLA's TPU gather lowering costs ~12 ns/row/gather
-    (measured r4) — on a VPU that is orders of magnitude more expensive
-    than the arithmetic it saves, so the direct form wins on TPU.
+    One DS division of the exact integers + one DS log (~2 kFLOP of f32
+    work per element), in place of the gather formulation
+    (log_tab[num] - log_tab[den]).
     """
     ratio = ds.div(ds.from_f32(num.astype(_F32)), ds.from_f32(den.astype(_F32)))
     return ds.log(ratio)
@@ -139,9 +142,9 @@ def local_fixed_log_likelihoods_ds(
 
     Matches models/local.local_log_likelihoods semantics (call.cpp:238-254)
     including the f64 cap comparisons and the long-double underflow clamp;
-    returns emulated-f64 arrays ready for the host LRT. ``use_tables``
-    selects the integer-log-table formulation (fewer FLOPs, 6 more gathers
-    per profile — slower on TPU where gathers dominate, see _int_ratio_log).
+    returns f64 arrays ready for the host LRT. ``use_tables`` selects the
+    integer-log-table formulation (fewer FLOPs, 6 more gathers per profile,
+    see _int_ratio_log).
     """
     profiles = profiles.astype(jnp.int32)
     cov = profiles.sum(-1)
@@ -307,7 +310,7 @@ def compound_neg_log_likelihood_ds(
     — mathematically identical to the f64 kernel's hom-lse + het-lse +
     logaddexp, but with a single exp/log pair on the (U, 10) term tensor.
     The 10 weight logs are one vectorized DS log of an f64 weight vector;
-    the final mult-weighted reduction runs in emulated f64 (exact relative
+    the final mult-weighted reduction runs in f64 (exact relative
     to the DS terms).
 
     Fitted-parameter drift bound (tests/test_ds.py::TestFitParameterDrift):
@@ -316,9 +319,7 @@ def compound_neg_log_likelihood_ds(
     realistic and degenerate histograms; the regression tolerance is
     |d_pi| <= max(1e-8, 1e-4 pi) / |d_eps| <= max(1e-9, 1e-5 eps) on
     realistic inputs and |d_pi| <= 1e-6 absolute on degenerate near-zero-pi
-    fits. On TPU the cross-precision gap is dominated by the *f64 side's*
-    emulation wobble (~6e-7 in pi on the degenerate bench histogram,
-    BENCH_r04), not by this kernel.
+    fits.
     """
     pi = theta[..., 0]
     eps = theta[..., 1]

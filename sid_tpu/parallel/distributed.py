@@ -29,8 +29,7 @@ def initialize(
 ) -> None:
     """jax.distributed bring-up.
 
-    With no explicit arguments, relies on cluster auto-detection (TPU pod
-    metadata). Auto-detection failures are logged, and escalate to a hard
+    With no explicit arguments, relies on JAX's cluster auto-detection. Auto-detection failures are logged, and escalate to a hard
     error when the environment said a multi-process run was intended
     (SIDTPU_NUM_PROCESSES > 1): a silently-degraded wrong-world-size run is
     worse than no run (SURVEY §5.3 failure-detection mandate).
@@ -158,9 +157,6 @@ def run_multihost(
         iter_range_chunks,
         pack_profiles,
     )
-    from sid_tpu.utils.keepalive import ensure_device_keepalive
-
-    ensure_device_keepalive()  # long parse passes between device fits
     from sid_tpu.models import common
     from sid_tpu.ops.profiles import filter_min_coverage
 

@@ -2,7 +2,7 @@
 
 The compound log-likelihood is a sum over unique profiles (lynch.cpp:46-52);
 with the profile histogram sharded over the mesh, the jitted fit's reduction
-lowers to an XLA all-reduce (psum over ICI) per objective evaluation — the
+lowers to an XLA all-reduce (psum) per objective evaluation — the
 distributed-communication design of SURVEY §5.8. The (pi, epsilon) simplex
 state stays replicated (tiny), so each nmsimplex2 iteration costs one or two
 fused sharded-reduce evaluations.
@@ -43,8 +43,7 @@ def fit_lynch_global(
     max_cov = int(profiles.sum(-1).max()) if u else 0
 
     # pad to a bucket divisible by the mesh size; zero-mult rows are inert
-    b = bucket_size(max(u, 1))
-    b = ((b + n_dev - 1) // n_dev) * n_dev
+    b = bucket_size(max(u, 1), multiple=n_dev)
     prof_pad = np.zeros((b, 4), np.int32)
     prof_pad[:u] = profiles
     mult_pad = np.zeros(b, np.int64)

@@ -13,7 +13,6 @@ np.longdouble oracle, so fitted (pi, eps) agree to ~1e-6 relative and %g
 confidences can differ in the last printed digit.
 """
 
-import os
 import shutil
 import subprocess
 
@@ -24,20 +23,14 @@ from sid_tpu import engine
 from sid_tpu.config import Options
 
 from synth import make_pileup_text, simulate_diploid_counts
-
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-EXE = os.path.join(REPO, "tools", "baseline", "sid_baseline")
-SRC = os.path.join(REPO, "tools", "baseline", "sid_baseline.cpp")
+from tools.baseline.build import ensure_built
 
 
 @pytest.fixture(scope="module")
 def baseline_exe():
-    if not os.path.exists(EXE) or os.path.getmtime(EXE) < os.path.getmtime(SRC):
-        gxx = shutil.which("g++")
-        if gxx is None:
-            pytest.skip("g++ not available")
-        subprocess.run([gxx, "-O2", "-fopenmp", "-o", EXE, SRC, "-lm"], check=True)
-    return EXE
+    if shutil.which("g++") is None:
+        pytest.skip("g++ not available")
+    return ensure_built()
 
 
 @pytest.fixture(scope="module")

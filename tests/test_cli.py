@@ -193,8 +193,8 @@ class TestWarmCache:
         code, out, err = run_cli(["--warm-cache"], capsys)
         assert code == 0
         assert out == ""  # nothing on stdout: it's a maintenance subcommand
-        # CPU backend: the 13 f64 configs + slim kernel (the DS/microbench
-        # warms are TPU-path, gated off CPU unless SIDTPU_WARM_DS=1)
+        # the 13 f64 configs + slim kernel (the DS/microbench warms run
+        # only under SIDTPU_WARM_DS=1)
         assert "# warm-cache: 14 method configs compiled" in err
         for m in ("local", "quality", "bayes", "likelihood_ratio"):
             assert f"# warm {m}" in err

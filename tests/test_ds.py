@@ -1,9 +1,9 @@
 """Double-single (two-f32) device kernels: accuracy and CSV parity.
 
-The ds kernels (ops/ds.py, ops/likelihoods_ds.py) are the TPU-native fast
-path (SIDTPU_DEVICE_PREC=ds): native f32 VPU arithmetic at ~2^-48 precision
-instead of XLA's generic f64 emulation. On CPU (this suite) they are slower
-than native f64 — these tests pin accuracy and output parity, not speed.
+The ds kernels (ops/ds.py, ops/likelihoods_ds.py) are the alternative
+device precision (SIDTPU_DEVICE_PREC=ds): f32-pair arithmetic at ~2^-48
+precision. On CPU (this suite) they are slower than native f64 — these
+tests pin accuracy and output parity, not speed.
 
 Parity contract tested here:
 - core DS ops and transcendentals: ~1e-13 relative or better under jit;
@@ -321,25 +321,8 @@ class TestEngineParity:
         assert got == want
 
 
-class TestKeepalive:
-    def test_idempotent_noop_on_cpu(self):
-        # on the CPU backend the keepalive must not spawn a thread, and
-        # repeated calls must be cheap no-ops (engine entry points call it
-        # on every batch)
-        import threading
-
-        from sid_tpu.utils import keepalive
-
-        before = {t.name for t in threading.enumerate()}
-        keepalive.ensure_device_keepalive()
-        keepalive.ensure_device_keepalive()
-        after = {t.name for t in threading.enumerate()}
-        assert "sidtpu-device-keepalive" not in after - before
-        assert keepalive._started
-
-
 class TestFitParameterDrift:
-    """DS-vs-f64 fitted-parameter agreement (VERDICT r4 next #7).
+    """DS-vs-f64 fitted-parameter agreement.
 
     The kernel- and CSV-level DS tests above cannot see a drifting fit
     OPTIMUM; this bounds |pi_ds - pi_f64| and |eps_ds - eps_f64| directly.
@@ -347,10 +330,7 @@ class TestFitParameterDrift:
     objectives agree to ~1e-13 relative, and the 1e-5-size GSL stop makes
     the discrete trajectory insensitive at that gap) on realistic AND
     degenerate inputs; the tolerances below leave headroom for XLA version
-    skew. (On TPU, where "f64" is itself emulated, the f64 side wobbles by
-    ~6e-7 on degenerate near-zero-pi fits — BENCH_r04 fit_lynch rows — so
-    the honest cross-precision bound there is the one documented in
-    ops/likelihoods_ds.py, not this CPU pin.)
+    skew and for device libm differences.
     """
 
     def _fit_pair(self, profiles, mult):
@@ -399,7 +379,7 @@ class TestFitParameterDrift:
 
     def test_degenerate_near_zero_pi_fit_params_agree(self):
         # the bench microbench histogram: optimum pi ~ 3e-7 against a huge
-        # eps — the shape where TPU emulated-f64 wobbled in r4
+        # eps — the most sensitive shape for a cross-precision fit
         rng = np.random.default_rng(1)
         u = 2000
         profiles = rng.multinomial(

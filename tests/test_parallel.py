@@ -16,7 +16,7 @@ from sid_tpu.io.pileup import parse_pileup
 from sid_tpu.models.lynch import fit_on_filtered_profiles
 from sid_tpu.ops.profiles import filter_min_coverage, unique_profiles
 from sid_tpu.parallel.fit import fit_lynch_global
-from sid_tpu.parallel.mesh import make_site_mesh
+from sid_tpu.parallel.mesh import SITE_AXIS, make_site_mesh
 from sid_tpu.parallel.pipeline import call_per_shard, split_by_chromosome, split_ranges
 
 from synth import make_pileup_text, simulate_diploid_counts
@@ -87,6 +87,43 @@ class TestShardInvariance:
         parts = [cb(s, opts) for s in split_ranges(batch, 4)]
         merged = concat_results(parts).to_csv()
         assert merged == whole
+
+
+class TestUnevenMesh:
+    """A mesh whose size does not divide the power-of-two bucket still
+    shards every input: the site axis pads to a multiple of the mesh size."""
+
+    @pytest.mark.parametrize("exact", [True, False], ids=["exact_pvalues", "device_erfc"])
+    @pytest.mark.parametrize("method", ["local", "quality"])
+    @pytest.mark.parametrize("n_dev", [3, 6])
+    def test_matches_one_device(self, batch, n_dev, method, exact, monkeypatch):
+        one = call_batch(
+            batch, Options(method=method, mesh_devices=1, exact_pvalues=exact)
+        ).to_csv()
+        placed = []
+        device_put = jax.device_put
+
+        def recording_put(x, *args, **kwargs):
+            out = device_put(x, *args, **kwargs)
+            placed.append(out)
+            return out
+
+        monkeypatch.setattr(jax, "device_put", recording_put)
+        many = call_batch(
+            batch, Options(method=method, mesh_devices=n_dev, exact_pvalues=exact)
+        ).to_csv()
+        monkeypatch.undo()
+        assert many == one
+        sharded = [
+            a for a in placed
+            if isinstance(a.sharding, jax.sharding.NamedSharding)
+            and a.sharding.spec and a.sharding.spec[0] == SITE_AXIS
+        ]
+        assert sharded
+        for a in sharded:
+            rows = [s.data.shape[0] for s in a.addressable_shards]
+            assert len(rows) == n_dev
+            assert min(rows) > 0 and sum(rows) == a.shape[0]
 
 
 class TestPerShardFit:

@@ -17,6 +17,7 @@ Parity claims verified here:
 import gzip
 import hashlib
 import os
+import shutil
 import subprocess
 
 import numpy as np
@@ -25,6 +26,7 @@ import pytest
 from sid_tpu import engine
 from sid_tpu.config import Options
 from sid_tpu.io.pileup import parse_pileup
+from tools.baseline.build import ensure_built
 
 FIXTURE = os.path.join(
     os.path.dirname(os.path.abspath(__file__)),
@@ -98,12 +100,9 @@ def test_device_matches_oracle_fit_methods(raw_bytes, method):
 
 def test_baseline_binary_agrees(raw_bytes, tmp_path):
     """The independent C++ implementation confirms both engines."""
-    exe = os.path.join(
-        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-        "tools", "baseline", "sid_baseline",
-    )
-    if not os.path.exists(exe):
-        pytest.skip("baseline binary not built")
+    if shutil.which("g++") is None:
+        pytest.skip("g++ not available")
+    exe = ensure_built()
     path = tmp_path / "raw.pileup"
     path.write_bytes(raw_bytes)
     out = subprocess.run([exe, str(path)], capture_output=True, text=True,
